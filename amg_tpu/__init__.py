@@ -1,6 +1,6 @@
-"""amg_tpu — a TPU-native algebraic multigrid framework.
+"""amg_tpu — an accelerator algebraic multigrid framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 CPU/GPU AMG solver (txthpc/amg): classical Ruge-Stueben setup, V/W-cycle
 solve with multicolor smoothers, Krylov solvers, MatrixMarket I/O, and
 multi-chip row-sharded operation over a ``jax.sharding.Mesh``.

@@ -1,13 +1,16 @@
-"""Persistent XLA compile cache, keyed by a host fingerprint.
+"""Persistent XLA compile cache at a fixed place.
 
-JAX's persistent compilation cache does not key entries by the *host* CPU's
-feature set; an entry AOT-compiled on one machine silently fails to load on
-another ("Target machine feature ... is not supported on the host machine"),
-after which XLA recompiles from scratch on EVERY run — the stale entry is
-never replaced.  A cache produced on a previous build host turned warm test
-runs into hour-long compile storms here, so the cache directory name carries
-a fingerprint of (machine arch, CPU flags, jax version): a foreign cache is
-simply a different directory.
+If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+:func:`enable` leaves every setting alone.  Otherwise the cache lives in
+``<checkout>/.jax_cache/<host fingerprint>``: a fixed path (the path is
+part of what makes a later run hit) inside the checkout.
+
+The fingerprint (machine arch, CPU flags, jax version) keeps hosts apart:
+JAX's persistent cache does not key CPU-backend entries by the host's
+feature set, and an entry AOT-compiled on one machine fails to load on
+another ("Target machine feature ... is not supported on the host
+machine"), after which XLA recompiles on every run without replacing the
+stale entry.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ from __future__ import annotations
 import hashlib
 import os
 import platform
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _host_fingerprint() -> str:
@@ -37,15 +43,23 @@ def _host_fingerprint() -> str:
 
 
 def cache_dir() -> str:
-    base = os.environ.get("AMG_JAX_CACHE_BASE", "/tmp/amg_tpu_jax_cache")
-    return f"{base}_{_host_fingerprint()}"
+    """The directory :func:`enable` points JAX at."""
+    env = os.environ.get(ENV_VAR)
+    if env:
+        return env
+    return os.path.join(_REPO_ROOT, ".jax_cache", _host_fingerprint())
 
 
 def enable(min_compile_secs: float = 0.5) -> str:
-    """Point JAX's persistent compile cache at the fingerprinted dir."""
+    """Turn on JAX's persistent compile cache; returns its directory.
+
+    With ``JAX_COMPILATION_CACHE_DIR`` set this changes nothing: JAX has
+    taken the directory from the environment at import."""
+    d = cache_dir()
+    if os.environ.get(ENV_VAR):
+        return d
     import jax
 
-    d = cache_dir()
     jax.config.update("jax_compilation_cache_dir", d)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       min_compile_secs)

@@ -644,21 +644,21 @@ int32_t std_interp_values(
 // Greedy first-fit per 1024-row group over column-sorted entries:
 // admit (row, col) into a slot iff (1) col lies in the slot's 1024-wide
 // window [128*base, 128*base + 1024), (2) the row's lane is free, and
-// (3) the (output-sublane, column-remainder) cell of the slot's Q table
+// (3) the (tile-row, column-remainder) cell of the slot's Q table
 // is free or already maps to the same column block (the two-step-gather
 // conflict-freedom invariant).  Pass 1 counts slots per group; pass 2
 // re-runs the identical greedy and fills base / packed loc / values.
 // No reference counterpart: the reference's CSR SpMV gathers globally
-// (amg/SSS_utils.c:182-201); this layout is what makes the gather fast
-// on a TPU vector unit.
+// (amg/SSS_utils.c:182-201); this layout keeps each slot's gathers inside
+// one 1024-wide window of x.
 // ---------------------------------------------------------------------------
 
 namespace {
 
 struct WellSlot {
-    int32_t base;            // window start, sublane units
+    int32_t base;            // window start, 128-row units
     uint64_t occ[16];        // row-lane occupancy (1024 bits)
-    uint8_t qmap[1024];      // (sublane*128 + remainder) -> block, 0xFF free
+    uint8_t qmap[1024];      // (tile_row*128 + remainder) -> block, 0xFF free
     // (group-local row, global nnz index) pairs; fill pass only
     std::vector<std::pair<int32_t, int64_t>> entries;
 };
@@ -796,7 +796,7 @@ int32_t well_pack_fill(
                     lc[r] |= (int32_t)(off & 127);
                     vv[r] = av[ei];
                 }
-                // Q table: lane j of sublane su holds the block of the
+                // Q table: column j of tile row su holds the block of the
                 // remainder-j entry
                 for (int32_t cell = 0; cell < 1024; ++cell)
                     if (s.qmap[cell] != 0xFF)
@@ -1055,8 +1055,8 @@ int32_t dir_interp_values(
 // Greedy sequential graph coloring over the symmetrized pattern of A.
 //
 // Rows of one color are mutually independent, so a vectorized update of a
-// color class is exact Gauss-Seidel in the colored ordering (the TPU answer
-// to the reference's sequential GS, amg/Solve/SSS_smooth.c:90-137).  Greedy
+// color class is exact Gauss-Seidel in the colored ordering (the data-parallel
+// answer to the reference's sequential GS, amg/Solve/SSS_smooth.c:90-137).  Greedy
 // first-fit in row order gives <= maxdeg+1 colors in O(nnz); the transpose
 // pattern is built internally (counting sort) so asymmetric patterns are
 // colored correctly.

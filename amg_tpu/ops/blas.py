@@ -2,17 +2,19 @@
 
 Replaces the reference's scalar-loop array ops (``SSS_blas_array_*``,
 amg/SSS_utils.c:151-260) with jnp reductions/elementwise ops that XLA fuses
-and vectorizes onto the VPU.  All functions are jit-safe and, under
-``shard_map``, reduce across the mesh axis when ``axis_name`` is given —
-this is the TPU equivalent of the global dots the reference computes in a
-single address space (SURVEY.md section 2, "Distributed communication
-backend").
+and vectorizes.  All functions are jit-safe and, under ``shard_map``,
+reduce across the mesh axis when ``axis_name`` is given — the distributed
+form of the global dots the reference computes in a single address space
+(SURVEY.md section 2, "Distributed communication backend").  Dots pin
+``precision=HIGHEST`` so an f32 reduction never runs in TF32.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _maybe_psum(x, axis_name):
@@ -23,12 +25,13 @@ def _maybe_psum(x, axis_name):
 
 def dot(x, y, axis_name=None):
     """<x, y> (reference SSS_blas_array_dot, amg/SSS_utils.c:206)."""
-    return _maybe_psum(jnp.vdot(x, y), axis_name)
+    return _maybe_psum(jnp.vdot(x, y, precision=HIGHEST), axis_name)
 
 
 def norm2(x, axis_name=None):
     """||x||_2 (reference SSS_blas_array_norm2, amg/SSS_utils.c:151)."""
-    return jnp.sqrt(_maybe_psum(jnp.vdot(x, x), axis_name))
+    return jnp.sqrt(_maybe_psum(jnp.vdot(x, x, precision=HIGHEST),
+                                axis_name))
 
 
 def norminf(x, axis_name=None):

@@ -1,7 +1,7 @@
 """Multi-chip distribution of the AMG solve phase.
 
 The reference is strictly single-process/single-GPU (SURVEY.md section 0);
-distribution is a capability this framework adds, designed TPU-first:
+distribution is a capability this framework adds:
 
 * **1-D row-block partition** of every level's padded ELL operator over a
   ``jax.sharding.Mesh`` axis ``'x'`` — the AMG analog of sequence/data
@@ -10,17 +10,16 @@ distribution is a capability this framework adds, designed TPU-first:
 * **GSPMD partitioning**: operators and vectors carry
   ``NamedSharding(P('x'))`` annotations; the *same* jitted cycle/Krylov code
   that runs on one chip runs on the mesh, with XLA inserting the collectives
-  (all-gathers for the SpMV column gathers, psums for dot products) over
-  ICI.  This is the scaling-book recipe: pick a mesh, annotate shardings,
+  (all-gathers for the SpMV column gathers, psums for dot products).  This
+  is the scaling-book recipe: pick a mesh, annotate shardings,
   let the compiler place communication.
 * **Coarse-level replication**: levels whose nnz falls below
   ``pars.coarse_replicate_nnz`` are fully replicated so coarse corrections
-  run without any communication — the TPU equivalent of the
-  coarse-grid-redistribution requirement in BASELINE.json.
+  run without any communication — the coarse-grid-redistribution
+  requirement in BASELINE.json.
 
-An explicit Pallas halo-exchange SpMV (ppermute of precomputed boundary
-index sets, overlapped with the interior product) is the planned
-optimization on top of this correctness-first layer.
+The explicit halo-exchange alternative (ppermute rings overlapped with
+the interior product) is :mod:`amg_tpu.parallel.spmd_cycle`.
 """
 
 from __future__ import annotations
@@ -134,7 +133,6 @@ def _shard_level(level: Level, mesh: Mesh, replicate: bool, ndev: int) -> Level:
             ranges=level.ranges,
             compact_idx=put(level.compact_idx),
             member_idx=put(level.member_idx),
-            gs_w=put(level.gs_w),
         )
 
     def shard_rows(arr):
@@ -147,11 +145,6 @@ def _shard_level(level: Level, mesh: Mesh, replicate: bool, ndev: int) -> Level:
         if m is None:
             return None
         if isinstance(m, Dia):
-            if m.vals.ndim == 3:  # blocked layout: rows live on axis 1
-                vals = jax.device_put(
-                    m.vals, NamedSharding(mesh, P(None, "x", None))
-                )
-                return Dia(vals, m.offsets, m.shape, m.nnz)
             d = _pad_dia_multiple(m, ndev)
             vals = jax.device_put(
                 d.vals, NamedSharding(mesh, P(None, "x"))
@@ -226,11 +219,6 @@ def _shard_level(level: Level, mesh: Mesh, replicate: bool, ndev: int) -> Level:
             jax.device_put(level.member_idx, _replicated(mesh))
             if level.member_idx is not None
             else None
-        ),
-        gs_w=(
-            jax.device_put(level.gs_w,
-                           NamedSharding(mesh, P(None, "x")))
-            if level.gs_w is not None else None
         ),
     )
 

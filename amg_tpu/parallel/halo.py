@@ -8,11 +8,9 @@ from the DIA shifted slices.  This module is the hand-placed alternative
   slice of every vector;
 * a band of half-width ``lo``/``hi`` needs exactly the last ``lo``
   entries of the left neighbor and the first ``hi`` entries of the right
-  neighbor — two neighbor ``ppermute`` s over ICI, nothing global;
-* the local product then runs on the assembled window with the
-  single-chip kernels (the Pallas wide-DIA kernel on TPU, XLA shifted
-  slices elsewhere) — shard_map composes per-device Pallas with explicit
-  collectives, which GSPMD cannot do with an un-annotated pallas_call.
+  neighbor — two neighbor ``ppermute`` s, nothing global;
+* the local product then runs on the assembled window with the same
+  shifted-slice product as the single-device path.
 
 Functions here are written to be called INSIDE ``shard_map``; see
 :func:`spmv_dia_ring` for the wrapped convenience entry point.
@@ -33,6 +31,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..sparse import Dia
+from ..ops.blas import HIGHEST
 
 
 def dia_halo_widths(offsets) -> tuple[int, int]:
@@ -41,37 +40,19 @@ def dia_halo_widths(offsets) -> tuple[int, int]:
     return lo, hi
 
 
-def dia_spmv_local(offsets, vals_local: jnp.ndarray, xw: jnp.ndarray,
-                   interpret: bool = False) -> jnp.ndarray:
+def dia_spmv_local(offsets, vals_local: jnp.ndarray,
+                   xw: jnp.ndarray) -> jnp.ndarray:
     """Local product on an already-haloed window.
 
     ``vals_local``: (nd, m) value planes of this shard's rows;
     ``xw``: (lo + m + hi,) window = [left halo | local x | right halo].
-    Uses the Pallas kernel when the local block qualifies, XLA shifted
-    slices otherwise (CPU tests, narrow bands, odd tiles).
     """
-    from ..ops import pallas_dia
-
-    if vals_local.ndim == 3:  # blocked (Pallas-native) storage
-        nd, mb, _ = vals_local.shape
-        m = mb * 128
-    else:
-        nd, m = vals_local.shape
-    lo, hi = dia_halo_widths(offsets)
-    d_loc = Dia(vals_local, tuple(offsets), (m, m), nd * m)
-    use_pallas = (
-        pallas_dia._platform() == "tpu"
-        and not interpret
-        and pallas_dia.will_use(tuple(offsets), m, vals_local.dtype,
-                                xw.dtype)
-    )
-    if use_pallas:
-        return pallas_dia.spmv_window(d_loc, xw)
-    v2 = d_loc.vals2d
+    m = vals_local.shape[1]
+    lo, _ = dia_halo_widths(offsets)
     acc = jnp.zeros((m,), xw.dtype)
     for k, off in enumerate(offsets):
         s = lo + off
-        acc = acc + v2[k] * jax.lax.slice(xw, (s,), (s + m,))
+        acc = acc + vals_local[k] * jax.lax.slice(xw, (s,), (s + m,))
     return acc
 
 
@@ -135,21 +116,13 @@ def _ring_halos(offsets, n_shards: int, axis_name: str,
     return left, right
 
 
-# row-block granularity for the interior/boundary split: multiples of the
-# Pallas TILE keep every sub-block kernel-eligible and 128-lane aligned
+# row-block granularity for the interior/boundary split (keeps every
+# sub-block 128-row aligned)
 _SPLIT_ROUND = 4096
-
-
-def _slice_vals(vals_local, a: int, b: int):
-    """Rows [a, b) of a shard's value planes ((nd, m) or blocked)."""
-    if vals_local.ndim == 3:
-        return vals_local[:, a // 128:b // 128, :]
-    return vals_local[:, a:b]
 
 
 def dia_spmv_ring_local(offsets, n_shards: int, axis_name: str,
                         vals_local: jnp.ndarray, x_local: jnp.ndarray,
-                        interpret: bool = False,
                         overlap: bool = True) -> jnp.ndarray:
     """One shard's y = (A x)_local with neighbor halo exchange.
 
@@ -157,7 +130,7 @@ def dia_spmv_ring_local(offsets, n_shards: int, axis_name: str,
     into an interior block (band stays inside the local x slice) and two
     boundary bands that are the only consumers of the ``ppermute`` d
     halos; the interior product carries no data dependency on the
-    collectives, so XLA's latency-hiding scheduler runs the ICI transfers
+    collectives, so XLA's latency-hiding scheduler runs the transfers
     concurrently with the interior SpMV — the BASELINE.json north-star
     "halo exchange overlapped with local SpMV compute".  Numerics are
     unchanged: each row sees the same per-diagonal accumulation order.
@@ -166,30 +139,25 @@ def dia_spmv_ring_local(offsets, n_shards: int, axis_name: str,
     m = x_local.shape[0]
     left, right = _ring_halos(offsets, n_shards, axis_name, x_local)
 
-    # boundary band heights, rounded to the block granularity so every
-    # sub-product stays Pallas-eligible; fall back to the monolithic
-    # window when the shard is too small to split profitably
+    # boundary band heights, rounded to the block granularity; fall back
+    # to the monolithic window when the shard is too small to split
     t = -(-lo // _SPLIT_ROUND) * _SPLIT_ROUND if lo else 0
     bt = -(-hi // _SPLIT_ROUND) * _SPLIT_ROUND if hi else 0
     if overlap and t + bt < m and (t or bt) and m % 128 == 0:
         parts = []
         if t:
             xw_top = jnp.concatenate([left, x_local[:t + hi]])
-            parts.append(dia_spmv_local(
-                offsets, _slice_vals(vals_local, 0, t), xw_top,
-                interpret=interpret))
+            parts.append(dia_spmv_local(offsets, vals_local[:, :t], xw_top))
         # interior rows [t, m-bt): window x_local[t-lo : m-bt+hi] is fully
         # local (t >= lo, bt >= hi by construction) — no halo dependency,
         # so it overlaps with the ppermutes above
         xw_int = jax.lax.slice(x_local, (t - lo,), (m - bt + hi,))
-        parts.append(dia_spmv_local(
-            offsets, _slice_vals(vals_local, t, m - bt), xw_int,
-            interpret=interpret))
+        parts.append(dia_spmv_local(offsets, vals_local[:, t:m - bt],
+                                    xw_int))
         if bt:
             xw_bot = jnp.concatenate([x_local[m - bt - lo:], right])
-            parts.append(dia_spmv_local(
-                offsets, _slice_vals(vals_local, m - bt, m), xw_bot,
-                interpret=interpret))
+            parts.append(dia_spmv_local(offsets, vals_local[:, m - bt:],
+                                        xw_bot))
         return jnp.concatenate(parts) if len(parts) > 1 else parts[0]
 
     parts = []
@@ -199,11 +167,11 @@ def dia_spmv_ring_local(offsets, n_shards: int, axis_name: str,
     if right is not None:
         parts.append(right)
     xw = jnp.concatenate(parts) if len(parts) > 1 else x_local
-    return dia_spmv_local(offsets, vals_local, xw, interpret=interpret)
+    return dia_spmv_local(offsets, vals_local, xw)
 
 
-def spmv_dia_ring(d: Dia, x: jnp.ndarray, mesh: Mesh, axis: str = "x",
-                  interpret: bool = False) -> jnp.ndarray:
+def spmv_dia_ring(d: Dia, x: jnp.ndarray, mesh: Mesh,
+                  axis: str = "x") -> jnp.ndarray:
     """y = A @ x with the operator row-sharded over ``mesh[axis]``.
 
     Convenience wrapper: shards the value planes and the vector, runs the
@@ -219,14 +187,11 @@ def spmv_dia_ring(d: Dia, x: jnp.ndarray, mesh: Mesh, axis: str = "x",
     if pad % n_shards != 0:
         raise ValueError(f"padded_rows {pad} not divisible by {n_shards}")
 
-    vals_spec = P(None, axis, None) if d.vals.ndim == 3 else P(None, axis)
     fn = shard_map(
-        partial(dia_spmv_ring_local, tuple(d.offsets), n_shards, axis,
-                interpret=interpret),
+        partial(dia_spmv_ring_local, tuple(d.offsets), n_shards, axis),
         mesh=mesh,
-        in_specs=(vals_spec, P(axis)),
+        in_specs=(P(None, axis), P(axis)),
         out_specs=P(axis),
-        check_vma=False,
     )
     return fn(d.vals, x)
 
@@ -238,16 +203,15 @@ def spmv_dia_ring(d: Dia, x: jnp.ndarray, mesh: Mesh, axis: str = "x",
 
 def well_shard_plan(w, n_shards: int,
                     in_m128: int | None = None) -> tuple[int, int]:
-    """Per-mesh halo widths (sublane units) for a row-sharded WEll
+    """Per-mesh halo widths (128-row units) for a row-sharded WEll
     operator (device-array convenience wrapper over
     :meth:`WEll.ring_plan_host`; production packs precompute the plan on
     the host arrays and store it in ``w.ring_plan``).
 
     After the RCM / barycentric ordering windows hug the diagonal, so
-    lo/hi come out near the matrix's (block) bandwidth — the same
-    locality that makes the single-chip kernel fast makes the halo thin.
-    For rectangular operators (P/R) pass ``in_m128`` = input-vector
-    sublanes per shard.
+    lo/hi come out near the matrix's (block) bandwidth and the halo stays
+    thin.  For rectangular operators (P/R) pass ``in_m128`` = input-vector
+    128-row blocks per shard.
     """
     from ..sparse import WEll as _WEll
 
@@ -261,8 +225,8 @@ def well_shard_plan(w, n_shards: int,
 
 
 def well_spmv_ring_local(w, x_local: jnp.ndarray, axis_name: str,
-                         n_shards: int, lo128: int, hi128: int,
-                         interpret: bool = False) -> jnp.ndarray:
+                         n_shards: int, lo128: int,
+                         hi128: int) -> jnp.ndarray:
     """One shard's y = (A x)_local for a groups-sharded WEll operator.
 
     Call INSIDE shard_map with ``w`` sliced to this shard's groups
@@ -270,11 +234,8 @@ def well_spmv_ring_local(w, x_local: jnp.ndarray, axis_name: str,
     blocks arrive via the same multi-hop ``ppermute`` rings as the DIA
     path; window bases are rebased to the local haloed view and clamped
     (inactive slots carry zero values, so their clamped window reads are
-    harmless).  Local compute is the single-chip windowed-gather Pallas
-    kernel — the shard_map composition GSPMD cannot express.
+    harmless).
     """
-    from ..ops import pallas_well
-
     m = x_local.shape[0]
     m128 = m // 128
     lo, hi = lo128 * 128, hi128 * 128
@@ -294,42 +255,19 @@ def well_spmv_ring_local(w, x_local: jnp.ndarray, axis_name: str,
     base_local = jnp.clip(w.base.astype(jnp.int32) - off, 0,
                           jnp.int32(max(xrows - 8, 0)))
 
-    return _well_apply(w, base_local, xw, xrows, interpret)
+    return _well_apply(w, base_local, xw, xrows)
 
 
-def _well_apply(w, base_i32: jnp.ndarray, xw: jnp.ndarray, xrows: int,
-                interpret: bool = False) -> jnp.ndarray:
+def _well_apply(w, base_i32: jnp.ndarray, xw: jnp.ndarray,
+                xrows: int) -> jnp.ndarray:
     """Windowed-gather product of a (sliced) WEll operator against an
-    x window of ``xrows`` sublanes, bases already expressed in window
-    coordinates.  Pallas kernel on TPU (or interpret), vmapped XLA
-    fallback elsewhere (a per-slot unroll compiled minutes on CPU)."""
-    from ..ops import pallas_well
-
+    x window of ``xrows`` 128-row blocks, bases already expressed in
+    window coordinates (vmapped over groups and slots)."""
     ngroups_l = w.vals.shape[0]
-    use_kernel = interpret or (
-        pallas_well._platform() == "tpu"
-        and jnp.dtype(xw.dtype) == jnp.float32
-        and pallas_well.will_use(ngroups_l, w.n_slots, xrows * 128,
-                                 w.vals.dtype, xw.dtype)
-    )
-    if use_kernel:
-        x2d = xw.reshape(xrows, 128)
-        outs = []
-        # group-chunked like pallas_well.spmv: the prefetched base table
-        # must fit SMEM per call (review r5: the unchunked path would
-        # fail Mosaic compile on large sharded levels)
-        for s, cg in pallas_well._group_chunks(ngroups_l, w.n_slots):
-            fn = pallas_well._build(cg, w.n_slots, xrows,
-                                    str(xw.dtype), str(w.vals.dtype),
-                                    interpret=interpret)
-            outs.append(fn(jnp.asarray([s], dtype=jnp.int32),
-                           base_i32[s:s + cg].reshape(-1), x2d,
-                           w.loc, w.vals).reshape(cg * 1024))
-        return outs[0] if len(outs) == 1 else jnp.concatenate(outs)
     x2d = xw.reshape(xrows, 128)
     vals = w.vals
     if w.vals_lo is not None and jnp.dtype(xw.dtype) == jnp.float64:
-        # df64 split-pack applied at full precision off-TPU
+        # df64 split-pack recombined at full precision
         vals = vals.astype(jnp.float64) + w.vals_lo.astype(jnp.float64)
 
     def slot(b, lc, v):
@@ -345,8 +283,7 @@ def _well_apply(w, base_i32: jnp.ndarray, xw: jnp.ndarray, xrows: int,
     return outs.astype(xw.dtype).reshape(ngroups_l * 1024)
 
 
-def well_spmv_local_full(w, x_full: jnp.ndarray,
-                         interpret: bool = False) -> jnp.ndarray:
+def well_spmv_local_full(w, x_full: jnp.ndarray) -> jnp.ndarray:
     """Product of a groups-SLICED WEll operator against the FULL
     (replicated) input vector — the boundary prolongation of the general
     sharded cycle: P's rows are sharded but the coarse correction is
@@ -355,12 +292,11 @@ def well_spmv_local_full(w, x_full: jnp.ndarray,
     pc = w.pad_cols
     xp = jnp.pad(x_full, (0, pc - x_full.shape[0])) \
         if x_full.shape[0] < pc else x_full[:pc]
-    return _well_apply(w, w.base.astype(jnp.int32), xp, pc // 128,
-                       interpret)
+    return _well_apply(w, w.base.astype(jnp.int32), xp, pc // 128)
 
 
-def spmv_well_ring(w, x: jnp.ndarray, mesh: Mesh, axis: str = "x",
-                   interpret: bool = False) -> jnp.ndarray:
+def spmv_well_ring(w, x: jnp.ndarray, mesh: Mesh,
+                   axis: str = "x") -> jnp.ndarray:
     """y = A @ x with a WEll operator row-group-sharded over
     ``mesh[axis]`` — the wrapped convenience entry (tests / direct use).
     """
@@ -380,18 +316,16 @@ def spmv_well_ring(w, x: jnp.ndarray, mesh: Mesh, axis: str = "x",
                   w.ring_plan)
     fn = shard_map(
         lambda wl, xl: well_spmv_ring_local(wl, xl, axis, n_shards,
-                                            lo128, hi128,
-                                            interpret=interpret),
+                                            lo128, hi128),
         mesh=mesh,
         in_specs=(specs, P(axis)),
         out_specs=P(axis),
-        check_vma=False,
     )
     return fn(w, xp)
 
 
 # ---------------------------------------------------------------------------
-# BandedBlocks ring (round 5): block-banded MXU levels across the mesh
+# BandedBlocks ring (round 5): block-banded levels across the mesh
 # ---------------------------------------------------------------------------
 
 
@@ -400,7 +334,7 @@ def banded_spmv_ring_local(nb: int, n_shards: int, axis_name: str,
                            x_local: jnp.ndarray) -> jnp.ndarray:
     """One shard's y = (A x)_local for a block-row-sharded BandedBlocks
     operator: the halo is exactly ``nb`` 128-blocks each way (the block
-    band), then the same batched-MXU product as the single-chip
+    band), then the same batched block product as the single-device
     :func:`amg_tpu.ops.spmv.spmv_banded`.  Out-of-mesh halo blocks read
     zeros — identical to the global operator's zero padding.
     """
@@ -420,7 +354,8 @@ def banded_spmv_ring_local(nb: int, n_shards: int, axis_name: str,
         axis=1,
     )
     y = jnp.einsum("idrc,idc->ir", vals_local, xws,
-                   preferred_element_type=x_local.dtype)
+                   preferred_element_type=x_local.dtype,
+                   precision=HIGHEST)
     return y.reshape(m).astype(x_local.dtype)
 
 
@@ -442,26 +377,16 @@ def spmv_banded_ring(a, x: jnp.ndarray, mesh: Mesh,
         mesh=mesh,
         in_specs=(P(axis, None, None, None), P(axis)),
         out_specs=P(axis),
-        check_vma=False,
     )
     return fn(a.vals, xp)
 
 
 def well_spmv_ring_local_df64(w, x64_local: jnp.ndarray, axis_name: str,
-                              n_shards: int, lo128: int, hi128: int,
-                              interpret: bool = False) -> jnp.ndarray:
-    """f64-quality ring product of a groups-sharded df64 WEll pack.
-
-    The f64 input splits locally into double-single (hi, lo) f32 planes;
-    the ring exchanges the two f32 planes (same ICI bytes as one f64
-    exchange) and the per-shard df64 Pallas kernel does the rest.  The
-    per-shard SMEM base table is ``ngroups/D * S`` entries — the mesh
-    divides the single-chip gate (pallas_well.usable_df64) by D, so 10M+
-    row operators that trip it single-chip clear it sharded.  Off-TPU:
-    full-f64 windowed-gather fallback (exact, for emulated-mesh tests).
-    """
-    from ..ops import pallas_well
-
+                              n_shards: int, lo128: int,
+                              hi128: int) -> jnp.ndarray:
+    """f64 ring product of a groups-sharded df64 WEll pack: the f64
+    vector is exchanged directly and the split planes recombine to the
+    f64 operator in the local apply."""
     m = x64_local.shape[0]
     m128 = m // 128
     lo, hi = lo128 * 128, hi128 * 128
@@ -470,42 +395,6 @@ def well_spmv_ring_local_df64(w, x64_local: jnp.ndarray, axis_name: str,
     off = s_idx * jnp.int32(m128) - jnp.int32(lo128)
     base_local = jnp.clip(w.base.astype(jnp.int32) - off, 0,
                           jnp.int32(max(xrows - 8, 0)))
-    ngroups_l = w.vals.shape[0]
-
-    # same VMEM-fit gate as the single-chip usable_df64: two x planes
-    # + double-buffered (loc, vals, vals_lo) slot tiles must fit, else
-    # fall through to the exact full-f64 XLA path below instead of
-    # failing Mosaic compile
-    ngl = w.vals.shape[0]
-    tile_bytes = w.n_slots * 1024 * (2 + 4 + 4)
-    fits = (2 * xrows * 128 * 4 + 2 * 2 * tile_bytes + 8 * 1024
-            <= pallas_well._VMEM_BUDGET)
-    use_kernel = (pallas_well._platform() == "tpu" or interpret) \
-        and w.vals_lo is not None and fits
-    if use_kernel:
-        xh = x64_local.astype(jnp.float32)
-        xl = (x64_local - xh.astype(jnp.float64)).astype(jnp.float32)
-        offs = ((-lo,) if lo else ()) + ((hi,) if hi else ())
-        if offs:
-            lh, rh = _ring_halos(offs, n_shards, axis_name, xh)
-            ll, rl = _ring_halos(offs, n_shards, axis_name, xl)
-            xh = jnp.concatenate([p for p in (lh, xh, rh)
-                                  if p is not None])
-            xl = jnp.concatenate([p for p in (ll, xl, rl)
-                                  if p is not None])
-        xh2 = xh.reshape(xrows, 128)
-        xl2 = xl.reshape(xrows, 128)
-        outs = []
-        for s, cg in pallas_well._group_chunks(ngroups_l, w.n_slots):
-            fn = pallas_well._build_df64(cg, w.n_slots, xrows,
-                                         interpret=interpret)
-            yh, yl = fn(jnp.asarray([s], dtype=jnp.int32),
-                        base_local[s:s + cg].reshape(-1), xh2, xl2,
-                        w.loc, w.vals, w.vals_lo)
-            outs.append((yh.astype(jnp.float64)
-                         + yl.astype(jnp.float64)).reshape(cg * 1024))
-        return outs[0] if len(outs) == 1 else jnp.concatenate(outs)
-    # off-TPU: exchange the f64 vector directly, apply at full precision
     offs = ((-lo,) if lo else ()) + ((hi,) if hi else ())
     if offs:
         left, right = _ring_halos(offs, n_shards, axis_name, x64_local)
@@ -513,4 +402,4 @@ def well_spmv_ring_local_df64(w, x64_local: jnp.ndarray, axis_name: str,
                               if p is not None])
     else:
         xw = x64_local
-    return _well_apply(w, base_local, xw, xrows, interpret=False)
+    return _well_apply(w, base_local, xw, xrows)

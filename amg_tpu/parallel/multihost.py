@@ -6,29 +6,29 @@ the standard JAX multi-controller recipe:
 
 * every process runs the SAME program (SPMD at the controller level),
 * :func:`initialize` wires the processes together via
-  ``jax.distributed.initialize`` (Gloo/TCP coordination on CPU, the TPU
-  runtime's own bootstrap on real pods),
+  ``jax.distributed.initialize`` (Gloo/TCP coordination on CPU, NCCL on
+  GPUs),
 * after initialization ``jax.devices()`` returns the GLOBAL device list in
   process order, so the existing 1-D row-partition mesh
   (:func:`~amg_tpu.parallel.dist.make_mesh`) transparently spans hosts.
 
-DCN-vs-ICI axis plan
---------------------
+Intra- vs inter-host axis plan
+------------------------------
 ``jax.devices()`` orders devices process-by-process, so a flat 1-D mesh
 axis ``'x'`` gives every host one CONTIGUOUS block of matrix rows.  The
 ring halo exchanges of the row-partitioned SpMV
 (:mod:`~amg_tpu.parallel.halo`) are nearest-neighbor ``ppermute`` s along
-that axis: all hops between two shards of the same host ride ICI, and only
-the one boundary hop per host pair crosses DCN — O(halo width) bytes per
-cycle, the cheapest possible DCN footprint for a 1-D partition.  Global
-reductions (``psum`` dots/norms in CG and the residual check) are
-hierarchical under XLA: intra-host partials reduce over ICI before the
-cross-host exchange.  For hybrid meshes :func:`make_host_mesh` exposes an
-explicit ``('host', 'chip')`` 2-D mesh where sharding annotations can keep
-an axis DCN-only or ICI-only.
+that axis: all hops between two shards of the same host stay on the
+host's device interconnect, and only the one boundary hop per host pair
+crosses the network — O(halo width) bytes per cycle, the cheapest
+inter-host footprint for a 1-D partition.  Global reductions (``psum``
+dots/norms in CG and the residual check) are hierarchical under XLA:
+intra-host partials reduce before the cross-host exchange.  For hybrid
+meshes :func:`make_host_mesh` exposes an explicit ``('host', 'chip')`` 2-D
+mesh where sharding annotations can keep an axis inter-host-only or
+intra-host-only.
 
-On this machine no second host (or TPU pod) is attached; the multi-host
-path is exercised by ``tests/test_multihost.py`` and ``bench_dist.py
+The multi-host path is exercised by ``tests/test_multihost.py`` and ``bench_dist.py
 --spawn``, which launch N real OS processes with emulated CPU devices and
 run the full sharded solve across them.
 """
@@ -107,7 +107,7 @@ def make_host_mesh(axes: tuple[str, str] = ("host", "chip")):
 
     Row-partition solvers use the flat 1-D mesh (see module docstring);
     this explicit host axis is for shardings that must distinguish
-    DCN-crossing from ICI-only communication (e.g. replicating the coarse
+    inter-host from intra-host communication (e.g. replicating the coarse
     tail per-host instead of per-chip).
     """
     import jax

@@ -18,7 +18,7 @@ class SmootherType(enum.IntEnum):
 
     The reference declares nine smoothers but only GS is live in its dispatch
     (amg/Solve/SSS_smooth.c:138-220).  Here every listed smoother is
-    implemented, plus TPU-native additions (L1-Jacobi, Chebyshev).
+    implemented, plus additions (L1-Jacobi, Chebyshev).
     """
 
     JACOBI = 1
@@ -32,7 +32,7 @@ class SmootherType(enum.IntEnum):
     SGSOR = 8
     POLY = 9
     L1DIAG = 10
-    # TPU-native extensions (not in reference enum):
+    # extensions (not in reference enum):
     WJACOBI = 20    # weighted Jacobi (relax factor)
     CHEBYSHEV = 21  # polynomial smoother tuned by spectral bounds
 
@@ -47,14 +47,14 @@ class InterpType(enum.IntEnum):
 class CoarsenType(enum.IntEnum):
     """Coarsening scheme (reference ``SSS_COARSEN_TYPE``, amg/SSS_main.h:163-168).
 
-    RS / RSP follow the reference; PMIS is the TPU-parallel-friendly addition
+    RS / RSP follow the reference; PMIS is the parallel-friendly addition
     used at scale (the reference's greedy RS queue is inherently serial).
     """
 
     RS = 1
     RSP = 2
     PMIS = 3
-    SA = 4    # smoothed aggregation (TPU-native addition): ~3x faster
+    SA = 4    # smoothed aggregation (addition): ~3x faster
               # coarsening per level with leaner Galerkin stencils
 
 
@@ -70,12 +70,12 @@ class CoarsestSolver(enum.IntEnum):
     """Coarsest-level solver choice.
 
     The reference hard-wires CG with a GMRES fallback
-    (amg/Solve/SSS_cycle.cu:819-846).  On TPU the idiomatic choice for a tiny
-    coarsest system is a dense direct solve (Cholesky/LU on the MXU), so that
-    is the default; KRYLOV reproduces reference behavior.
+    (amg/Solve/SSS_cycle.cu:819-846).  On an accelerator the idiomatic choice
+    for a tiny coarsest system is a dense inverse applied as one matvec, so
+    that is the default; KRYLOV reproduces reference behavior.
     """
 
-    DENSE = 1     # densify + LU/Cholesky (TPU default)
+    DENSE = 1     # densify + host LU inverse (default)
     KRYLOV = 2    # CG -> GMRES fallback (reference behavior)
 
 
@@ -146,37 +146,34 @@ class AMGParams:
     strong_threshold: float = 0.3
     trunc_threshold: float = 0.2
 
-    # --- TPU-native extensions (no reference equivalent) ---
+    # --- extensions (no reference equivalent) ---
     coarsest_solver: CoarsestSolver = CoarsestSolver.DENSE
     stop_type: StopType = StopType.REL_RES
     dtype: str = "float64"        # compute dtype for the solve phase
     setup_dtype: str = "float64"  # host setup always runs f64
     verbose: int = 1
-    # Device-format selection (TPU fast path)
+    # Device-format selection
     max_diags: int = 96           # use DIA when distinct offsets <= this
     max_dia_fill: float = 6.0     # ... and nd*n/nnz <= this
     # Permute coarse ELL levels color-contiguously so GS sweeps are static
     # row-range slices (one SpMV's work) instead of padded gathers
     reorder_gs: bool = True
-    # Densify a level (MXU matvec, zero gathers) when its dense footprint
+    # Densify a level (dense matvec, zero gathers) when its dense footprint
     # n_rows*n_cols*dtype_size fits this budget (deep levels are small but
-    # nearly dense; gathers are the TPU's weakest op)
+    # nearly dense, so a sparse format would mostly stream indices)
     dense_level_bytes: float = 2e9
     # Embed coarse levels in the fine-grid index space: coarse unknowns keep
     # their level-0 positions, so A_l / P_l / R_l become diagonal-offset
-    # stencils (Dia) over the fine grid — ZERO gathers in the whole cycle
-    # (TPU gathers are ~1000x slower than streaming).  Vectors at embedded
+    # stencils (Dia) over the fine grid — ZERO gathers in the whole cycle.
+    # Vectors at embedded
     # levels are fine-grid length; an embedded level costs nd_l * n0
     # streamed bytes per operator pass.  Levels stop embedding when the
     # stencil grows past `embed_max_diags` or the budget; unstructured
     # problems fall back to compact formats automatically.
-    # -1 = auto: 8 on TPU (where the Pallas window kernel makes streaming
-    # embedded stencils the fast path), 0 elsewhere (on CPU the compact
-    # gather formats are both faster to run AND orders of magnitude faster
-    # for XLA:CPU to compile — a GS sweep over an embedded wide-DIA level
-    # lowers to thousands of fused slices and was measured at 200+ s of
-    # LLVM time for a 1k-row problem).  Explicit values force the choice
-    # on any backend (the emulated-mesh shard_map tests do this).
+    # -1 = auto = 0: the compact gather formats are the default on every
+    # backend (a GS sweep over an embedded wide-DIA level lowers to
+    # thousands of fused slices and is far slower to compile).  Explicit
+    # values force embedding (the emulated-mesh shard_map tests do this).
     embed_levels: int = -1
     embed_max_diags: int = 320
     embed_max_bytes: float = 6e9
@@ -195,25 +192,25 @@ class AMGParams:
     # Chebyshev smoothing): level l uses poly_deg_schedule[min(l, len-1)].
     # None = pars.poly_deg everywhere.  Lighter smoothing at depth trims
     # operator passes on the mid levels where the cycle spends most of its
-    # HBM traffic (a degree-d application streams d operator passes).
+    # memory traffic (a degree-d application streams d operator passes).
     poly_deg_schedule: "tuple[int, ...] | None" = None
     # Storage dtype for coarse-level (>= 1) operator values ("same" or e.g.
     # "bfloat16"): coarse corrections are a preconditioner, so half-precision
-    # operator storage halves the dominant HBM traffic with little
+    # operator storage halves the dominant memory traffic with little
     # convergence impact (outer accuracy comes from defect correction).
     coarse_op_dtype: str = "same"
     # Storage dtype for the P/R transfer-operator VALUES on WEll levels
-    # ("same" = solve dtype).  bf16 halves the value planes — at 10M-row
-    # unstructured scale the level-0 R alone is 4.8 GB in f32 (wide
-    # coarse rows are the WEll worst case) and this is the margin that
-    # fits HBM; interpolation weights tolerate bf16 far better than A
-    # itself, and the FCG wrap + f64 outer absorb the rest.
+    # ("same" = solve dtype).  bf16 halves the value planes (wide coarse
+    # rows are the WEll worst case); interpolation weights tolerate bf16
+    # far better than A itself, and the FCG wrap + f64 outer absorb the
+    # rest.
     transfer_op_dtype: str = "same"
     # Mixed-precision defect correction: run the V-cycles in `dtype`
-    # (f32/bf16 — MXU/VPU native) but iterate the correction against an
-    # f64 level-0 residual, reaching f64-grade tolerances (e.g. 1e-8) at
-    # low-precision speed.  TPU answer to the reference's all-double
-    # arithmetic (SURVEY.md section 7 hard part 4).
+    # (f32/bf16 — half the bytes of f64) but iterate the correction
+    # against an f64 level-0 residual, reaching f64-grade tolerances
+    # (e.g. 1e-8) at low-precision speed.  Mixed-precision alternative to
+    # the reference's all-double arithmetic (SURVEY.md section 7 hard
+    # part 4).
     refine: bool = False
     refine_inner_cycles: int = 4
     # Krylov acceleration: "none" = stand-alone cycling (reference
@@ -223,16 +220,13 @@ class AMGParams:
     # FCG outer iteration runs in f64 against the f64 operator while the
     # preconditioner cycle runs in `dtype`.
     accel: str = "none"
-    # Block-banded MXU format for gather-bound coarse levels: RCM-reorder
-    # the level and store dense 128x128 blocks along the block band when
-    # that fits `banded_level_bytes` — static shifted slices + batched
-    # block matvec instead of XLA gathers (~37M gathered elements/s).
-    # "auto" enables it on a single device; "on"/"off" force.
+    # Block-banded format for gather-bound coarse levels: RCM-reorder the
+    # level and store dense 128x128 blocks along the block band when that
+    # fits `banded_level_bytes` — static shifted slices + batched block
+    # matvec instead of gathers.  "auto" enables it on a single device;
+    # "on"/"off" force.
     use_banded: str = "auto"
-    # sized so a 10M-row Poisson's level-3 RCM band (~3.05 GB) qualifies:
-    # a gather-ELL level runs at ~0.9 GB/s effective vs ~89% of HBM
-    # speed-of-light for BandedBlocks — at these sizes almost any band
-    # that fits HBM beats gathers
+    # sized so a 10M-row Poisson's level-3 RCM band (~3.05 GB) qualifies
     banded_level_bytes: float = 3.5e9
     # When the RCM band slightly exceeds the byte budget, clip the band at
     # the largest nb that fits and lump the out-of-band entries into the
@@ -240,10 +234,7 @@ class AMGParams:
     # (geometric cousin of coarse_sparsify; row sums preserved).
     banded_clip_frac: float = 0.02
     # Windowed-gather ELL (WEll) for large UNSTRUCTURED levels that would
-    # otherwise fall to gather-ELL (XLA's general gather on TPU is a
-    # scalar loop, measured ~1.2 GB/s at 1M rows; the WEll Pallas kernel
-    # streams the same operator at >60% of HBM bandwidth).  Levels picked
-    # for WEll are RCM/barycentrically reordered so each slot's 1024-wide
+    # otherwise fall to gather-ELL.  Levels picked for WEll are RCM/barycentrically reordered so each slot's 1024-wide
     # x window stays local.  "auto" enables it on a single device for
     # levels >= well_min_rows; "on"/"off" force.
     use_well: str = "auto"
@@ -258,8 +249,8 @@ class AMGParams:
     # on levels >= sparsify_from_level drop entries with
     # |a_ij| < threshold * sqrt(|a_ii a_jj|) and lump the dropped mass
     # into the diagonal (row sums preserved).  RS-AMG Galerkin stencils
-    # grow to hundreds of nnz/row at depth; on TPU every one of those is
-    # a gather, so sparsification directly buys per-cycle time.  0 = off
+    # grow to hundreds of nnz/row at depth and every one of those is a
+    # gather, so sparsification directly buys per-cycle time.  0 = off
     # (exact Galerkin parity with the reference).
     coarse_sparsify: float = 0.0
     sparsify_from_level: int = 3
@@ -268,7 +259,7 @@ class AMGParams:
     # coarse_dof — whose "col < coarse_dof" check DISCARDS the offending
     # coarse level (amg/Setup/SSS_SETUP.cu:92-98) — this keeps the level
     # and makes it the coarsest.  Used to collapse the deep dense tail
-    # into one MXU inverse apply: the sub-10k levels cost more in per-op
+    # into one dense inverse apply: the sub-10k levels cost more in per-op
     # dispatch overhead than their arithmetic.
     coarse_stop_rows: int = 0
     # Multi-device settings

@@ -1,7 +1,7 @@
 """Smoothed-aggregation (SA) coarsening.
 
 No reference equivalent (the reference is classical RS-AMG only,
-amg/Setup/SSS_coarsen.c); this is the TPU-native extension flagged in
+amg/Setup/SSS_coarsen.c); this is the extension flagged in
 ROADMAP.md: aggregation keeps coarse operators *leaner* than RS —
 aggregates of ~3^d nodes coarsen ~3x faster per level with smaller
 Galerkin stencils, which is exactly what the fine-grid embedding wants

@@ -13,8 +13,7 @@
 
 * :func:`pmis_split` — parallel-friendly PMIS splitting (vectorized numpy,
   trivially portable to the device) for pod-scale problems where the greedy
-  queue would be the bottleneck.  No reference equivalent; TPU-native
-  addition.
+  queue would be the bottleneck.  No reference equivalent.
 """
 
 from __future__ import annotations

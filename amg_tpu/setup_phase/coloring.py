@@ -1,10 +1,10 @@
-"""Graph coloring for TPU-parallel Gauss-Seidel.
+"""Graph coloring for parallel Gauss-Seidel.
 
 The reference's default smoother is sequential lexicographic Gauss-Seidel
 with C/F ordering (amg/Solve/SSS_smooth.c:4-137) — inherently serial, the
 number-one "hard part" for a SIMD machine (SURVEY.md section 7).
 
-TPU-native answer: **multicolor Gauss-Seidel**.  Color the adjacency graph
+Data-parallel answer: **multicolor Gauss-Seidel**.  Color the adjacency graph
 of A so no two adjacent rows share a color; rows of one color have no
 mutual dependencies, so updating them simultaneously is *exact* Gauss-Seidel
 for the colored ordering.  One sweep = `n_colors` vectorized group updates,

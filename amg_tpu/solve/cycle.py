@@ -3,12 +3,12 @@
 Replicates the reference's non-recursive counter/goto cycle
 (``SSS_amg_cycle``, amg/Solve/SSS_cycle.cu:848-967) as a recursion that
 unrolls at trace time: level count and shapes are static, so XLA sees one
-straight-line program of gathers, VPU arithmetic and (at the coarsest level)
-one small dense matmul on the MXU.  Per reference semantics, level 0 runs
+straight-line program of sparse products, elementwise arithmetic and (at
+the coarsest level) one small dense matvec.  Per reference semantics, level 0 runs
 its block once per cycle call and deeper levels repeat their block
 ``cycle_type`` times per parent visit (V=1, W=2).
 
-The coarsest solve is either a dense inverse apply (TPU default; the
+The coarsest solve is either a dense inverse apply (default; the
 reference's coarsest grids are ~10-1000 rows) or reference-style CG with
 GMRES fallback (``SSS_amg_coarest_solve``, amg/Solve/SSS_cycle.cu:819-846).
 """
@@ -19,14 +19,15 @@ import jax.numpy as jnp
 
 from ..params import AMGParams, CoarsestSolver
 from ..hierarchy import Hierarchy
-from ..ops.spmv import spmv, residual_fused
+from ..ops.blas import HIGHEST
+from ..ops.spmv import spmv, residual
 from .smoothers import smooth
 
 
 def coarsest_solve(mg: Hierarchy, b: jnp.ndarray, pars: AMGParams, ctol):
     """Solve the coarsest system."""
     if pars.coarsest_solver == CoarsestSolver.DENSE:
-        return mg.coarse_inv @ b
+        return jnp.matmul(mg.coarse_inv, b, precision=HIGHEST)
     from .krylov import cg, gmres
 
     level = mg.levels[-1]
@@ -70,7 +71,7 @@ def _cycle_level(mg: Hierarchy, l: int, x, b, pars: AMGParams, ctol):
         # pre-smoothing
         x = smooth(level, x, b, pars_l, pars.pre_iter, pre=True)
         # restrict residual
-        r = residual_fused(level.a, x, b)
+        r = residual(level.a, x, b)
         if level.member_idx is not None:
             # compact boundary: gather the residual at this level's member
             # positions (n_E-sized — small), then compact Ell restriction.

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from ..params import SMALLFLOAT, MAX_STAG, MAX_RESTART, ErrorCode
 from ..sparse import Ell, Dia, Dense, BandedBlocks
 from ..ops.spmv import spmv
-from ..ops.blas import dot, norm2, norminf
+from ..ops.blas import HIGHEST, dot, norm2, norminf
 
 _SMALLFLOAT2 = 1e-40  # breakdown tolerance (reference SMALLFLOAT2)
 
@@ -371,13 +371,13 @@ def gmres(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None, axis_name=None,
         def backsub(idx, y):
             jj = m - 1 - idx
             act = jj < k_eff
-            s = g[jj] - jnp.dot(H[jj, :], y)
+            s = g[jj] - jnp.dot(H[jj, :], y, precision=HIGHEST)
             hjj = H[jj, jj]
             val = jnp.where(jnp.abs(hjj) > SMALLFLOAT, s / jnp.where(hjj != 0, hjj, 1.0), 0.0)
             return y.at[jj].set(jnp.where(act, val, 0.0))
 
         y = jax.lax.fori_loop(0, m, backsub, y)
-        dx = prec(V[:m].T @ y)
+        dx = prec(jnp.matmul(V[:m].T, y, precision=HIGHEST))
         x = x + dx
 
         res = jnp.abs(g[jnp.minimum(k_eff, m)])

@@ -1,4 +1,4 @@
-"""TPU-native smoothers.
+"""Smoothers.
 
 The reference dispatches nine smoother types but only sequential
 Gauss-Seidel is live (amg/Solve/SSS_smooth.c:138-220; the comment at
@@ -18,7 +18,7 @@ Here every smoother is a jit-safe function over the device
 * Chebyshev polynomial smoothing (``SSS_SM_POLY`` analog) using Jacobi
   preconditioning and a spectral-radius estimate computed at setup.
 
-All updates are expressed as gathers + VPU arithmetic over padded ELL rows;
+All updates are expressed as sparse products + elementwise arithmetic;
 there is no sequential scan anywhere.
 """
 
@@ -27,32 +27,20 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..ops.blas import HIGHEST
 from ..params import SmootherType
 from ..sparse import Dia, Dense, BandedBlocks, WEll
 
 
 def _masked_group_update(level, x, b, g: int, relax=None):
-    """Gauss-Seidel update of group ``g`` on the DIA fast path.
+    """Gauss-Seidel update of group ``g`` on a gather-free format.
 
-    Gather-free: one full (diagonal-slice) SpMV, then a masked update of the
-    group's rows.  ``t_i = (b_i - (Ax)_i + a_ii x_i) / a_ii`` is the exact
-    GS update because rows within a group are mutually independent.
-
-    With a precomputed group-weight stack (``level.gs_w``) and the Pallas
-    DIA kernel applicable, the whole update runs as ONE fused kernel pass
-    ``x + w_g * (b - A x)`` (pallas_dia.gs_update): the select, diagonal
-    add-back and division fold into the kernel epilogue, saving the
-    separate ~24 B/row XLA elementwise pass per color.
+    One full SpMV, then a masked update of the group's rows.
+    ``t_i = (b_i - (Ax)_i + a_ii x_i) / a_ii`` is the exact GS update
+    because rows within a group are mutually independent.  XLA fuses the
+    product, the update and the select into one pass over the operator.
     """
     from ..ops.spmv import spmv
-    from ..ops import pallas_dia
-
-    if (relax is None and level.gs_w is not None
-            and isinstance(level.a, Dia)
-            and 0 in level.a.offsets
-            and b.shape[0] == level.a.padded_rows
-            and pallas_dia.usable(level.a, x)):
-        return pallas_dia.gs_update(level.a, x, b, level.gs_w[g])
 
     ax = spmv(level.a, x)
     t = (b - ax + level.diag * x) * level.inv_diag
@@ -114,14 +102,14 @@ def _range_update(level, x, b, start: int, size: int, relax=None):
 
 
 def _range_update_dense(level, x, b, start: int, size: int, relax=None):
-    """Range GS update on a Dense level: one static-slice MXU matvec.
+    """Range GS update on a Dense level: one static-slice matvec.
 
     Within a color class A has no intra-class couplings, so the full-row
     product plus add-back of the diagonal term is the exact GS update.
     """
     a = level.a
     sub = jax.lax.slice(a.vals, (start, 0), (start + size, a.padded_cols))
-    ax = sub @ x[: a.padded_cols]
+    ax = jnp.matmul(sub, x[: a.padded_cols], precision=HIGHEST)
     bs = jax.lax.slice(b, (start,), (start + size,))
     ds = jax.lax.slice(level.diag, (start,), (start + size,))
     invd = jax.lax.slice(level.inv_diag, (start,), (start + size,))

@@ -10,12 +10,12 @@ Two worlds:
 
 * **Device**: :class:`Ell` — padded ELLPACK, a rectangular (rows x width)
   layout with per-row column indices.  Static shapes and contiguous gathers
-  make it the natural TPU representation: SpMV becomes a dense gather +
-  multiply + row-reduction that XLA vectorizes onto the VPU, with no
+  make it a natural accelerator representation: SpMV becomes a dense
+  gather + multiply + row-reduction that XLA fuses into one loop, with no
   data-dependent shapes under ``jit``.  This replaces the reference's
   thread-per-CSR-row CUDA kernel (amg/Solve/SSS_cuda.cu:77-96).
 
-Rows are padded to the next multiple of 8 (f32 sublane) and the width to the
+Rows are padded to the next multiple of 8 and the width to the
 actual max row degree; padding entries carry ``col = row`` (a self-reference,
 always a valid index) and ``val = 0`` so no masks are needed in compute.
 """
@@ -44,11 +44,10 @@ def _device_scatter_2d(shape, rows, cols, data, dtype) -> jnp.ndarray:
     """zeros(shape).at[rows, cols].set(data) with minimal host->device
     traffic (indices+values only).
 
-    Scatters into the FLATTENED array with 1-D linear indices: a 2-D
-    ``s32[nnz, 2]`` index operand gets (8,128)-tile padded on TPU — a 64x
-    memory expansion that OOMs at tens of millions of entries — while a
-    1-D index vector pads 1x.  Linear indices are i64 (nd * pad_rows can
-    exceed 2^31).
+    Scatters into the FLATTENED array with 1-D linear indices: one index
+    vector instead of a 2-D ``s32[nnz, 2]`` index operand, half the index
+    bytes at tens of millions of entries.  Linear indices are i64
+    (nd * pad_rows can exceed 2^31).
     """
     inner = int(np.prod(shape[1:]))
     n_flat = int(shape[0]) * inner
@@ -380,7 +379,7 @@ class Ell:
 
 
 # ---------------------------------------------------------------------------
-# Device Dense format (small levels -> MXU)
+# Device Dense format (small levels)
 # ---------------------------------------------------------------------------
 
 
@@ -392,7 +391,7 @@ class Dense:
     Deep AMG levels are small (thousands of rows) but nearly dense
     (hundreds of nnz/row after repeated Galerkin products), which makes
     gather-based sparse formats pointless: a dense matvec streams the
-    operator once and runs on the MXU with zero gathers.  Replaces the
+    operator once with zero gathers.  Replaces the
     reference's CSR SpMV (amg/SSS_utils.c:182-201) for levels whose dense
     footprint fits ``AMGParams.dense_level_bytes``.
     """
@@ -469,7 +468,7 @@ class Dense:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class Dia:
-    """Diagonal (offset) storage on device — the TPU fast path for banded
+    """Diagonal (offset) storage on device — the fast path for banded
     operators.
 
     ``vals[d, i] = A[i, i + offsets[d]]`` with a static offset tuple.  SpMV
@@ -477,8 +476,8 @@ class Dia:
 
         y = sum_d vals[d] * x_padded[L + offsets[d] : L + offsets[d] + n]
 
-    i.e. pure VPU streaming with **no gathers** — measured ~35x faster than
-    gather-based ELL SpMV on TPU (see ops/spmv.py).  AMG operators from
+    i.e. pure streaming with **no gathers** and no index bytes (see
+    ops/spmv.py).  AMG operators from
     stencil problems (and their Galerkin coarse operators) have few distinct
     offsets, so most levels qualify; unstructured levels fall back to
     :class:`Ell`.
@@ -511,24 +510,7 @@ class Dia:
 
     @property
     def padded_rows(self) -> int:
-        if self.vals.ndim == 3:
-            return self.vals.shape[1] * self.vals.shape[2]
         return self.vals.shape[1]
-
-    @property
-    def blocked(self) -> bool:
-        """True when values are stored in the Pallas kernel's native
-        (nd, pad//128, 128) layout — chosen at pack time for wide bands so
-        the apply needs NO relayout (an apply-time reshape of a multi-GB
-        operand materializes full tiled copies and OOMs at 10M rows)."""
-        return self.vals.ndim == 3
-
-    @property
-    def vals2d(self) -> jnp.ndarray:
-        """(nd, pad) view — host/debug use; a relayout copy on TPU."""
-        if self.vals.ndim == 3:
-            return self.vals.reshape(self.vals.shape[0], -1)
-        return self.vals
 
     @property
     def n_diags(self) -> int:
@@ -571,7 +553,6 @@ class Dia:
         dtype=jnp.float64,
         row_multiple: int = 8,
         pad_rows_to: int | None = None,
-        blocked: bool = False,
     ) -> "Dia":
         n_rows, n_cols = a.shape
         pr = _round_up(max(n_rows, 1), row_multiple)
@@ -589,19 +570,17 @@ class Dia:
             uniq = np.zeros(0, dtype=np.int64)
             dpos = np.zeros(0, dtype=np.int64)
         nd_bytes = len(uniq) * pr * np.dtype(dtype).itemsize
-        shape = ((len(uniq), pr // 128, 128) if (blocked and pr % 128 == 0)
-                 else (len(uniq), pr))
+        shape = (len(uniq), pr)
         if nd_bytes > _DEVICE_BUILD_BYTES:
             # sparse embedded stencils can be >100x larger than their nnz:
-            # upload triplets, scatter on device (flat, then reshape into
-            # the target layout while the array is still fresh)
+            # upload triplets, scatter on device
             vals = _device_scatter_2d(shape, dpos, rows, a.data, dtype)
         else:
             # build directly in the target dtype; (offset, row) pairs are
             # unique in a duplicate-free CSR, so plain assignment suffices
             vals_np = np.zeros((len(uniq), pr), dtype=np.dtype(dtype))
             vals_np[dpos, rows] = a.data
-            vals = jnp.asarray(vals_np.reshape(shape))
+            vals = jnp.asarray(vals_np)
         return Dia(
             vals,
             tuple(int(o) for o in uniq),
@@ -611,8 +590,6 @@ class Dia:
 
     def to_csr(self) -> CSR:
         vals = np.asarray(self.vals, dtype=np.float64)
-        if vals.ndim == 3:
-            vals = vals.reshape(vals.shape[0], -1)
         rows_l, cols_l, data_l = [], [], []
         for k, off in enumerate(self.offsets):
             i = np.arange(self.n_rows, dtype=np.int64)
@@ -628,62 +605,50 @@ class Dia:
 
 
 # ---------------------------------------------------------------------------
-# Device WEll (windowed-gather ELL) — the TPU format for UNSTRUCTURED rows
+# Device WEll (windowed-gather ELL) — a format for UNSTRUCTURED rows
 # ---------------------------------------------------------------------------
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class WEll:
-    """Windowed-gather ELL: the TPU-native format for unstructured sparsity.
+    """Windowed-gather ELL: slot-packed storage for unstructured sparsity.
 
-    XLA lowers a general gather on TPU to a scalar per-element loop —
-    measured 1.2 GB/s (0.1% of HBM bandwidth) for the padded-ELL
-    ``x[cols]`` SpMV at 1M rows.  The only fast dynamic data movement the
-    TPU vector unit offers is (a) a 128-lane shuffle per sublane row and
-    (b) an 8-sublane gather per lane (one vreg), both exposed through
-    Mosaic's ``dynamic_gather``.  This format restructures the matrix so
-    SpMV needs nothing else:
+    Every entry's column is reached through a small, local window of x:
 
-    * rows are processed in **groups of 1024** (one f32 vreg of the
-      vector: 8 sublanes x 128 lanes, row ``i`` at ``(i//128 % 8,
-      i % 128)``);
+    * rows are processed in **groups of 1024**, viewed as an (8, 128)
+      tile: row ``i`` at ``(i//128 % 8, i % 128)``;
     * each group's entries are packed into **slots**; all entries of a
       slot draw x from one 1024-wide column window (``[128*base,
       128*base + 1024)``), with at most one entry per row per slot;
-    * the kernel dynamically slices the window (8 sublanes of x kept in
-      VMEM), then resolves each entry's position ``(q, r) = (local//128,
-      local%128)`` with a sublane gather followed by a lane shuffle.
+    * an entry's column inside the window is ``128*q + r`` with ``r`` its
+      remainder and ``q`` its 128-block.
 
-    The two gathers compose as ``window[Q[s, r[s,l]], r[s,l]]``, so the
-    sublane indices are stored **permuted by remainder**: ``Q[s, j]`` is
-    the block of the (unique) slot entry in output sublane ``s`` whose
+    The block indices are stored **permuted by remainder**: ``Q[s, j]``
+    is the block of the (unique) slot entry in tile row ``s`` whose
     column remainder is ``j``.  The packer enforces the uniqueness
-    (entries in one slot and output sublane with equal column remainder
-    must share the whole column); both are packed into one int32 plane,
-    ``loc = (Q[s, l] << 7) | r[s, l]`` (int16 — 10 bits suffice,
-    halving the index plane's bytes).
+    (entries in one slot and tile row with equal column remainder must
+    share the whole column); both are packed into one int16 plane,
+    ``loc = (Q[s, l] << 7) | r[s, l]`` (10 bits suffice).
 
     A bandwidth-reducing row ordering (RCM) keeps windows local so slot
-    counts stay near the max row degree (measured ~35% slot fill on a 1M
-    Delaunay FEM matrix = ~17 bytes/nnz streamed, vs the same matrix's
-    gather-ELL at 0.1% of memory bandwidth).  Replaces the reference's
-    thread-per-row CSR CUDA kernel (amg/Solve/SSS_cuda.cu:77-96) for the
-    unstructured case.
+    counts stay near the max row degree.  The format was built for a
+    vector unit whose only fast dynamic data movement was the two
+    in-tile gathers; whether it still earns its place against plain ELL
+    is an open measurement.  Replaces the reference's thread-per-row CSR
+    CUDA kernel (amg/Solve/SSS_cuda.cu:77-96) for the unstructured case.
     """
 
     vals: jnp.ndarray   # (ngroups, S, 8, 128) dtype
     loc: jnp.ndarray    # (ngroups, S, 8, 128) int16: (Q << 7) | r
-    base: jnp.ndarray   # (ngroups, S) int32 window start (sublane units)
+    base: jnp.ndarray   # (ngroups, S) int32 window start (128-row units)
     shape: Tuple[int, int]
     nnz: int
     pad_cols: int       # x padding the windows were clamped against
     # df64 tail plane (f32, same layout as vals): set by from_csr_df64 —
-    # vals + vals_lo reproduces the f64 operator to ~1e-16; the Pallas
-    # df64 kernel then delivers an f64-quality matvec from pure-f32 VPU
-    # arithmetic (TPU has no hardware f64)
+    # vals + vals_lo reproduces the f64 operator exactly in f64
     vals_lo: Optional[jnp.ndarray] = None
-    # ring-halo widths (lo128, hi128) in sublane units for a
+    # ring-halo widths (lo128, hi128) in 128-row units for a
     # groups-sharded multi-chip apply (parallel/halo.well_spmv_ring_local)
     # — static metadata computed at pack time by ring_plan_host
     ring_plan: Optional[Tuple[int, int]] = None
@@ -702,9 +667,9 @@ class WEll:
     @staticmethod
     def ring_plan_host(base: np.ndarray, vals: np.ndarray, n_shards: int,
                        in_m128: int) -> Tuple[int, int]:
-        """Halo widths (lo128, hi128, sublane units) for a groups-sharded
+        """Halo widths (lo128, hi128, 128-row units) for a groups-sharded
         apply: shard ``s`` owns row groups ``[s*gps, (s+1)*gps)`` and the
-        input-vector block of ``in_m128`` sublanes; every ACTIVE slot's
+        input-vector block of ``in_m128`` 128-row blocks; every ACTIVE slot's
         window must fall inside ``[s*in_m128 - lo, (s+1)*in_m128 + hi)``.
         Inactive (all-zero) slots are ignored — the packer leaves their
         base at 0, which would otherwise drag ``lo`` to a full-mesh halo.
@@ -751,7 +716,7 @@ class WEll:
         Admission of entry (row, col) into a slot requires, in order:
         (1) ``128*base <= col < 128*base + 1024`` (window fit),
         (2) the row's lane is free in the slot,
-        (3) the (output-sublane, column-remainder) cell is either free or
+        (3) the (tile-row, column-remainder) cell is either free or
             already maps to the same column block — the two-step gather's
             conflict-freedom invariant (see class docstring).
         """
@@ -830,7 +795,7 @@ class WEll:
                     s, l = r >> 7, r & 127
                     vals[g, k, s, l] = v
                     loc[g, k, s, l] |= (c - 128 * b) & 127
-                # Q table: lane j of sublane s holds the block of the
+                # Q table: column j of tile row s holds the block of the
                 # remainder-j entry (the two-step gather reads it there)
                 for (s, rem), q in rmap.items():
                     loc[g, k, s, rem] |= q << 7
@@ -872,8 +837,8 @@ class WEll:
                       pad_cols_to: int | None = None,
                       ring_devices: int | None = None) -> "WEll":
         """Pack with the operator split into non-overlapping f32 planes
-        (vals = f32(v), vals_lo = f32(v - vals)): the df64 Pallas kernel
-        applies this at f64 quality without hardware f64."""
+        (vals = f32(v), vals_lo = f32(v - vals)); the apply recombines
+        them to the f64 operator."""
         vals64, loc, base = WEll.pack_host(
             a, dtype=np.float64, pad_rows_to=pad_rows_to,
             pad_cols_to=pad_cols_to)
@@ -905,14 +870,13 @@ class WEll:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class BandedBlocks:
-    """Block-banded dense storage — the MXU path for RCM-ordered levels.
+    """Block-banded dense storage for RCM-ordered levels.
 
     ``vals[i, d, r, c] = A[128 i + r, 128 (i + d - nb) + c]``: each block
     row ``i`` holds its ``2 nb + 1`` dense 128x128 blocks along the block
     band.  SpMV is ``2 nb + 1`` STATIC shifted slices of x (no gathers)
-    feeding one batched block matvec — the cure for gather-bound compact
-    coarse levels (XLA ELL gathers measured ~37M elements/s on TPU; this
-    format is plain HBM streaming + MXU).
+    feeding one batched block matvec — an alternative to gather-bound
+    compact coarse levels (no index bytes, plain streaming).
 
     Requires the level to be bandwidth-reduced first (reverse
     Cuthill-McKee in ``hierarchy.reorder_for_gs``); the fill cost is

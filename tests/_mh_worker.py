@@ -2,7 +2,7 @@
 
 Each OS process owns 4 emulated CPU devices; jax.distributed joins them
 into one 8-device run, and the row-sharded solve executes across both
-processes' device sets — the emulated analog of a 2-host TPU run.
+processes' device sets — the emulated analog of a 2-host run.
 """
 
 import os

@@ -313,9 +313,8 @@ def test_spmd_smoother_matches_single_device(sm):
 @requires_multidevice
 def test_well_ring_spmv_matches_global():
     """Groups-sharded WEll ring SpMV == global WEll SpMV on the emulated
-    mesh (VERDICT r4 item 4: the fast unstructured format must not turn
-    itself off when a second chip appears).  Checks both the XLA
-    fallback and the interpret-mode Pallas kernel."""
+    mesh (the unstructured format must not turn itself off when a second
+    device appears)."""
     import jax.numpy as jnp
     from amg_tpu.io.generators import fem2d
     from amg_tpu.sparse import WEll
@@ -346,9 +345,6 @@ def test_well_ring_spmv_matches_global():
     scale = max(np.abs(want).max(), 1e-30)
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-6)
 
-    got_k = np.asarray(spmv_well_ring(w, x, mesh, interpret=True))
-    np.testing.assert_allclose(got_k / scale, want / scale, atol=2e-6)
-
 
 @requires_multidevice
 def test_banded_ring_spmv_matches_global():
@@ -368,10 +364,8 @@ def test_banded_ring_spmv_matches_global():
     want = np.asarray(spmv_banded(b, x))
     got = np.asarray(spmv_banded_ring(b, x, make_mesh(8)))
     scale = max(np.abs(want).max(), 1e-30)
-    # on TPU both einsums run at default (bf16-product) matmul precision
-    # and round differently per sharding; f32 tolerance applies off-TPU
-    atol = 2e-6 if jax.default_backend() != "tpu" else 5e-2
-    np.testing.assert_allclose(got / scale, want / scale, atol=atol)
+    # both einsums pin HIGHEST precision: f32 tolerance on every backend
+    np.testing.assert_allclose(got / scale, want / scale, atol=2e-6)
 
 
 @requires_multidevice

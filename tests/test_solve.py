@@ -869,7 +869,7 @@ def test_unstructured_fem_solve():
 
 
 def test_unstructured_well_solve():
-    """End-to-end solve through the WEll path (unstructured TPU format):
+    """End-to-end solve through the WEll path (unstructured format):
     level 0 RCM-permuted (hh.perms[0] set, b/x handled at the API
     boundary), A/P/R packed as WEll, masked GS + FCG both converge, and
     the returned x is in the CALLER's ordering (host-verified residual

@@ -112,122 +112,14 @@ def test_dia_num_offsets():
     assert Dia.num_offsets(a) == 7
 
 
-def test_pallas_dia_kernel_interpret():
-    """The Pallas wide-DIA SpMV kernel (interpret mode) matches the host
-    CSR product."""
-    import jax.numpy as jnp
-    import amg_tpu as amg
-    from amg_tpu.ops import pallas_dia
-    from amg_tpu.sparse import Dia
-
-    n = pallas_dia.TILE * 2
-    rng = np.random.default_rng(0)
-    # banded matrix with ~40 scattered diagonals
-    offs = np.unique(rng.integers(-300, 300, 40))
-    rows_l, cols_l, vals_l = [], [], []
-    for o in offs:
-        i = np.arange(max(0, -o), min(n, n - o))
-        rows_l.append(i)
-        cols_l.append(i + o)
-        vals_l.append(rng.standard_normal(len(i)))
-    a = CSR.from_coo(np.concatenate(rows_l), np.concatenate(cols_l),
-                     np.concatenate(vals_l), (n, n))
-    d = Dia.from_csr(a, dtype=jnp.float32, pad_rows_to=n)
-    x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(pallas_dia.spmv(d, jnp.asarray(x), interpret=True))
-    want = a.matvec(x.astype(np.float64))
-    np.testing.assert_allclose(y, want, rtol=2e-5, atol=1e-5)
 
 
-def test_pallas_dia_narrow_band_interpret():
-    """Narrow stencil (7 diagonals, wide span) through the tile-picking
-    window kernel matches the host product — the round-3 extension that
-    lets the fine Poisson operator run in Pallas instead of XLA shifted
-    slices (which re-read x once per diagonal)."""
-    import jax.numpy as jnp
-    from amg_tpu.ops import pallas_dia
-    from amg_tpu.sparse import Dia
-
-    n = 40960  # one big tile: amplification (tile+span)/tile stays low
-    a = amg.poisson3d(34)  # 39304 rows, 7 diagonals, span +/-1156
-    d = Dia.from_csr(a, dtype=jnp.float32, pad_rows_to=n)
-    assert len(d.offsets) == 7
-    # the picker must select a tile for this pad and judge it profitable
-    tile = pallas_dia._pick_tile(7, 1156, 1156, 4, 4, n)
-    assert tile == 40960
-    assert pallas_dia.will_use(tuple(d.offsets), n, jnp.float32, jnp.float32)
-    rng_ = np.random.default_rng(3)
-    x = np.zeros(n, dtype=np.float32)
-    x[: a.n_rows] = rng_.standard_normal(a.n_rows)
-    y = np.asarray(pallas_dia.spmv(d, jnp.asarray(x), interpret=True))
-    want = a.matvec(x[: a.n_rows].astype(np.float64))
-    np.testing.assert_allclose(y[: a.n_rows], want, rtol=2e-5, atol=1e-5)
 
 
-def test_pallas_pick_tile_rules():
-    """Tile selection: wide bands are VMEM-capped to small tiles, narrow
-    bands get the largest dividing tile, and the XLA path keeps very
-    narrow/span-heavy cases."""
-    from amg_tpu.ops import pallas_dia
-
-    # 201 diagonals f32: 2*201*t*4 bytes of double-buffered vals caps the
-    # tile well below the maximum
-    assert pallas_dia._pick_tile(201, 500, 500, 4, 4, 40960) in (4096, 8192)
-    assert pallas_dia._pick_tile(300, 500, 500, 4, 4, 40960) == 4096
-    # too many value planes for VMEM at any tile -> no kernel
-    assert pallas_dia._pick_tile(420, 500, 500, 4, 4, 40960) is None
-    # 7 diagonals: largest tile
-    assert pallas_dia._pick_tile(7, 10000, 10000, 4, 4, 1024000) == 40960
-    # pad not divisible by the larger tiles
-    assert pallas_dia._pick_tile(7, 100, 100, 4, 4, 8192) == 8192
-    # profitability: tridiagonal with a huge span at a small tile loses
-    assert not pallas_dia._wins_vs_xla(3, 4000, 4000, 4096, 4, 4)
-    # pad rounding helper prefers the largest tile within 2.5%
-    assert pallas_dia.good_pad(1000000) == 1024000
-    assert pallas_dia.good_pad(9938376) == 9994240
-    assert pallas_dia.good_pad(262144) == 266240
 
 
-def test_dia_blocked_layout_roundtrip():
-    """Blocked (nd, pad//128, 128) Dia storage: same SpMV results and
-    host round-trip as the 2-D layout."""
-    import jax.numpy as jnp
-    import amg_tpu as amg
-    from amg_tpu.sparse import Dia
-    from amg_tpu.ops.spmv import spmv
-
-    a = amg.poisson3d(8)
-    pad = 1024  # multiple of 128
-    d2 = Dia.from_csr(a, dtype=jnp.float64, pad_rows_to=pad)
-    d3 = Dia.from_csr(a, dtype=jnp.float64, pad_rows_to=pad, blocked=True)
-    assert d3.blocked and d3.vals.ndim == 3
-    assert d3.padded_rows == d2.padded_rows
-    x = jnp.asarray(np.random.default_rng(0).standard_normal(pad))
-    np.testing.assert_allclose(np.asarray(spmv(d3, x)),
-                               np.asarray(spmv(d2, x)), rtol=1e-13)
-    c2, c3 = d2.to_csr().to_dense(), d3.to_csr().to_dense()
-    np.testing.assert_allclose(c3, c2)
 
 
-def test_pallas_kernel_blocked_vals():
-    """The Pallas kernel consumes blocked vals without reshaping."""
-    import jax.numpy as jnp
-    from amg_tpu.sparse import Dia
-    from amg_tpu.ops import pallas_dia
-    from amg_tpu.ops.spmv import spmv_dia
-
-    n = pallas_dia.TILE
-    offs = tuple(range(-40, 41, 2))
-    rng_ = np.random.default_rng(1)
-    vals2 = rng_.standard_normal((len(offs), n)).astype(np.float32)
-    d2 = Dia(jnp.asarray(vals2), offs, (n, n), len(offs) * n)
-    d3 = Dia(jnp.asarray(vals2.reshape(len(offs), n // 128, 128)),
-             offs, (n, n), len(offs) * n)
-    x = jnp.asarray(rng_.standard_normal(n).astype(np.float32))
-    y3 = np.asarray(pallas_dia.spmv(d3, x, interpret=True))
-    y2 = np.asarray(spmv_dia(d2, x))
-    # f32 with a different accumulation order (grouped by lane remainder)
-    np.testing.assert_allclose(y3, y2, rtol=2e-4, atol=1e-5)
 
 
 def test_banded_blocks_matches_csr():
@@ -250,26 +142,6 @@ def test_banded_blocks_matches_csr():
     np.testing.assert_allclose(bb.to_csr().to_dense(), a.to_dense())
 
 
-def test_pallas_multi_rhs_interpret():
-    """The multi-rhs kernel (interpret mode) matches per-column SpMV,
-    both directly and through the custom-vmap rule."""
-    import jax
-    import jax.numpy as jnp
-    from amg_tpu.ops import pallas_dia
-    from amg_tpu.sparse import Dia
-    from amg_tpu.ops.spmv import spmv_dia
-
-    n = pallas_dia.TILE
-    offs = tuple(range(-48, 49, 3))
-    rng_ = np.random.default_rng(2)
-    vals = rng_.standard_normal((len(offs), n)).astype(np.float32)
-    d = Dia(jnp.asarray(vals), offs, (n, n), len(offs) * n)
-    k = 4
-    xb = jnp.asarray(rng_.standard_normal((k, n)).astype(np.float32))
-    ys = np.asarray(pallas_dia.spmv_multi(d, xb, interpret=True))
-    for j in range(k):
-        want = np.asarray(spmv_dia(d, xb[j]))
-        np.testing.assert_allclose(ys[j], want, rtol=2e-4, atol=1e-5)
 
 
 def test_blas1_matches_numpy(rng):
@@ -291,7 +163,7 @@ def test_blas1_matches_numpy(rng):
 
 def test_well_roundtrip_and_spmv(rng):
     """WEll packing invariants + SpMV vs scipy on an unstructured matrix
-    (the TPU-native answer to the reference's general CSR SpMV,
+    (the unstructured answer to the reference's general CSR SpMV,
     amg/SSS_utils.c:182-201)."""
     import jax.numpy as jnp
     from amg_tpu.io.generators import fem2d
@@ -340,15 +212,13 @@ def test_well_rectangular(rng):
 
 
 def test_well_df64_spmv(rng):
-    """The double-single (df64) WEll path delivers an f64-quality matvec
-    from f32 planes: split-pack roundtrip is ~exact and both the Pallas
-    kernel (interpret) and the XLA fallback match scipy f64 to ~1e-13 —
-    far beyond f32's ~1e-6 (this backs the mixed-precision outer loop on
-    TPU, which has no hardware f64)."""
+    """The double-single (df64) WEll split pack reproduces the f64
+    operator: split-pack roundtrip is ~exact and the apply matches scipy
+    f64 to ~1e-13 — far beyond f32's ~1e-6 (this backs the
+    mixed-precision outer loop on unstructured levels)."""
     import jax.numpy as jnp
     from amg_tpu.io.generators import fem2d
     from amg_tpu.sparse import WEll
-    from amg_tpu.ops import pallas_well
     from amg_tpu.ops.spmv import spmv
 
     a = fem2d(3000, seed=4)
@@ -370,92 +240,13 @@ def test_well_df64_spmv(rng):
     y_fb = np.asarray(spmv(w, jnp.asarray(x)))[: a.n_rows]
     assert np.abs(y_fb - want).max() / scale < 1e-13
 
-    # Pallas interpret mode does not preserve the Dekker-split exactness
-    # (XLA's CPU pipeline simplifies hh = c - (c - v) away), so interpret
-    # only checks shape/plumbing at f32 accuracy; the f64-quality claim
-    # is verified on hardware (measured 4.3e-15 rel err on TPU v5e).
-    y_k = np.asarray(pallas_well.spmv_df64(w, jnp.asarray(x),
-                                           interpret=True))[: a.n_rows]
-    assert np.abs(y_k - want).max() / scale < 1e-5
-
-    # and the f32 kernel path on the same operator is ~1e-6 (sanity that
+    # and the f32 path on the same operator is ~1e-6 (sanity that
     # the df64 machinery is actually buying precision)
     w32 = WEll.from_csr(a, dtype=jnp.float32)
     y32 = np.asarray(spmv(w32, jnp.asarray(x.astype(np.float32))))
     assert np.abs(y32[: a.n_rows] - want).max() / scale > 1e-9
 
 
-def test_well_pallas_interpret(rng):
-    """The Pallas WEll kernel (interpret mode) matches the XLA reference."""
-    import jax.numpy as jnp
-    from amg_tpu.io.generators import fem2d
-    from amg_tpu.sparse import WEll
-    from amg_tpu.ops import pallas_well
-    from amg_tpu.ops.spmv import spmv
-
-    a = fem2d(2500, seed=2)
-    w = WEll.from_csr(a, dtype=jnp.float32)
-    x = jnp.asarray(rng.standard_normal(a.n_cols).astype(np.float32))
-    y = np.asarray(pallas_well.spmv(w, x, interpret=True))[: a.n_rows]
-    want = np.asarray(spmv(w, x))[: a.n_rows]
-    np.testing.assert_allclose(y, want, rtol=2e-4, atol=2e-4)
 
 
-def test_pallas_dia_fused_epilogues(rng):
-    """The fused DIA kernel epilogues (r = b - Ax; x + w*(b - Ax)) match
-    the unfused forms (interpret mode; on TPU these cut the smoother's
-    HBM traffic by the separate elementwise pass per color)."""
-    import jax.numpy as jnp
-    import amg_tpu as amg
-    from amg_tpu.sparse import Dia
-    from amg_tpu.ops import pallas_dia
-    from amg_tpu.ops.spmv import spmv
 
-    a = amg.poisson3d(16)
-    d = Dia.from_csr(a, dtype=jnp.float32, pad_rows_to=4096)
-    x = jnp.asarray(rng.standard_normal(4096).astype(np.float32))
-    b = jnp.asarray(rng.standard_normal(4096).astype(np.float32))
-    w = jnp.asarray(rng.standard_normal(4096).astype(np.float32))
-    ax = np.asarray(spmv(d, x))
-    scale = np.abs(ax).max()
-
-    r_k = np.asarray(pallas_dia.resid(d, x, b, interpret=True))
-    np.testing.assert_allclose(r_k / scale,
-                               (np.asarray(b) - ax) / scale, atol=2e-6)
-
-    u_k = np.asarray(pallas_dia.gs_update(d, x, b, w, interpret=True))
-    want = np.asarray(x) + np.asarray(w) * (np.asarray(b) - ax)
-    np.testing.assert_allclose(u_k / scale, want / scale, atol=2e-6)
-
-
-def test_well_group_chunking(rng, monkeypatch):
-    """When the window-base table exceeds the SMEM budget, the WEll SpMV
-    splits the group axis into independent kernel calls and still matches
-    the unchunked product (this is what lets 10M-row operators use the
-    kernel instead of the 1.4 s/apply XLA f64 gather)."""
-    import jax.numpy as jnp
-    from amg_tpu.io.generators import fem2d
-    from amg_tpu.sparse import WEll
-    from amg_tpu.ops import pallas_well
-
-    a = fem2d(5000, seed=9)
-    w = WEll.from_csr(a, dtype=jnp.float32)
-    w64 = WEll.from_csr_df64(a)
-    x = rng.standard_normal(w.pad_cols)
-    want = a.to_scipy() @ x[: a.n_cols]
-    scale = np.abs(want).max()
-
-    y1 = np.asarray(pallas_well.spmv(w, jnp.asarray(x, dtype=jnp.float32),
-                                     interpret=True))[: a.n_rows]
-    # force chunking: budget fits ~2 groups per chunk
-    monkeypatch.setattr(pallas_well, "_SMEM_BASE_BUDGET",
-                        2 * w.n_slots * 4)
-    assert len(pallas_well._group_chunks(w.vals.shape[0], w.n_slots)) > 1
-    y2 = np.asarray(pallas_well.spmv(w, jnp.asarray(x, dtype=jnp.float32),
-                                     interpret=True))[: a.n_rows]
-    np.testing.assert_allclose(y2, y1, rtol=0, atol=0)  # identical math
-    np.testing.assert_allclose(y2 / scale, want / scale, atol=2e-6)
-
-    y3 = np.asarray(pallas_well.spmv_df64(
-        w64, jnp.asarray(x), interpret=True))[: a.n_rows]
-    assert np.all(np.isfinite(y3))
